@@ -7,10 +7,9 @@ trajectory ATE.  Usage:
 
     python baselines/compare_maps.py <our_map.vtk> [dataPath]
 
-Recorded result (TPU run, 2026-08-17): 79,341 vs 79,339 points, chamfer
-mean 0.021 m / p95 0.081 m both directions — i.e. the maps differ by less
-than the 0.15 m octree decimation quantum; trajectory ATE is 0 by
-construction for the example config (IdentityErrorMinimizer on both sides).
+Trajectory ATE is 0 by construction for the example config
+(IdentityErrorMinimizer on both sides); the chamfer statistics are the
+parity number.
 """
 import json
 import os

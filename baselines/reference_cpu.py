@@ -10,7 +10,7 @@ the bundled example config — to measure a defensible "reference CPU scans/s"
 baseline and produce golden map/trajectory artifacts for ATE comparison
 (BASELINE.md: baseline numbers must be measured, none are published).
 
-This file is NOT part of the TPU framework; it is the benchmark yardstick.
+This file is NOT part of the JAX framework; it is the benchmark yardstick.
 """
 from __future__ import annotations
 

@@ -31,21 +31,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(HERE, "..", "examples", "config_p2plane.yaml")
 
 
-def perturb_poses(poses, sigma_t, sigma_r_rad, seed=7):
-    """Right-multiply each pose (except the first: the map anchor) by a
-    random small SE(3) offset — exp of a Gaussian twist."""
-    from norlab_icp_mapper_tpu import se3
-    import jax.numpy as jnp
-    rng = np.random.default_rng(seed)
-    out = [np.asarray(poses[0], np.float32)]
-    for p in poses[1:]:
-        xi = np.concatenate([rng.normal(0, sigma_t, 3),
-                             rng.normal(0, sigma_r_rad, 3)]).astype(np.float32)
-        dT = np.asarray(se3.exp_se3(jnp.asarray(xi)), np.float32)
-        out.append(dT @ np.asarray(p, np.float32))
-    return out
-
-
 def run(config, scans, hints, poses, stamps):
     from norlab_icp_mapper_tpu import Mapper
     mapper = Mapper(config, is_3d=True, is_online=False, is_mapping=True)
@@ -66,14 +51,14 @@ def main():
                     help="rotation noise stddev per axis (deg)")
     args = ap.parse_args()
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_comp_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from norlab_icp_mapper_tpu.utils.compile_cache import \
+        enable_compile_cache
+    enable_compile_cache()
 
     from norlab_icp_mapper_tpu import PointBatch
     from norlab_icp_mapper_tpu.io import read_vtk, read_trajectory_csv
     from norlab_icp_mapper_tpu.utils.metrics import ate, rpe
+    from norlab_icp_mapper_tpu.utils.synthetic import perturb_poses
 
     scans_dir = os.path.join(DATA, "scans")
     scan_files = sorted(f for f in os.listdir(scans_dir) if f.endswith(".vtk"))
@@ -86,8 +71,7 @@ def main():
         scans.append(PointBatch.from_numpy(pos, desc))
         hints.append(pos.shape[0])
 
-    sigma_r = np.deg2rad(args.sigma_r_deg)
-    noisy_poses = perturb_poses(clean_poses, args.sigma_t, sigma_r)
+    noisy_poses = perturb_poses(clean_poses, args.sigma_t, args.sigma_r_deg)
 
     mapper = run(CONFIG, scans, hints, noisy_poses, stamps)
     rec_poses = mapper.get_trajectory().poses

@@ -2,7 +2,7 @@
 //
 // The reference's point-cloud IO is native C++ (libpointmatcher's
 // VTK loader, reached from HardDriveCellManager.cpp:16,25 and the example
-// driver); this is the TPU framework's native data-loader equivalent:
+// driver); this is the framework's native data-loader equivalent:
 // one mmap-free single-pass strtof parse, ~5-10x faster than the
 // vectorized numpy fallback in io/vtk.py, used for scan ingestion and
 // cell spill files.

@@ -1,4 +1,4 @@
-"""norlab_icp_mapper_tpu — a TPU-native 2-D/3-D lidar ICP mapping framework.
+"""norlab_icp_mapper_tpu — a 2-D/3-D lidar ICP mapping framework in JAX.
 
 Brand-new JAX/XLA/Pallas implementation with the capability surface of
 norlab-ulaval/norlab_icp_mapper (+ the libpointmatcher features that mapper
@@ -11,9 +11,9 @@ reference and the design mapping.
 import jax as _jax
 
 # Geometry pipelines are cancellation-sensitive (expanded-form distances,
-# normal equations, pose composition). TPU f32 matmuls default to bf16-class
-# MXU passes, which injects ~1e-3 relative error into 3x3/4x4 transform math
-# — force full f32. Hot kernels that can tolerate less opt in explicitly.
+# normal equations, pose composition).  On NVIDIA GPUs f32 matmuls may run
+# in TF32 (about three decimal digits), which injects ~1e-3 relative error
+# into 3x3/4x4 transform math — force full f32 everywhere.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from .points import PointBatch, concatenate, bucket_capacity

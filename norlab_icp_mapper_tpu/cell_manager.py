@@ -77,7 +77,7 @@ class HardDriveCellManager(CellManager):
     SUFFIX = ".vtk"
 
     def __init__(self, directory: Optional[str] = None):
-        self._dir = directory or tempfile.mkdtemp(prefix="nim_tpu_cells_")
+        self._dir = directory or tempfile.mkdtemp(prefix="nim_cells_")
         os.makedirs(self._dir, exist_ok=True)
         self._ids: set = set()
 

@@ -229,10 +229,10 @@ class SurfaceNormalFilter(DataPointsFilter):
     smallest eigenvalue.  Two neighborhood engines:
 
     - ``maxDist`` finite: **radius PCA** (``ops/pca.py``) — moments of ALL
-      neighbors within ``maxDist`` accumulated by MXU matmuls; no top-k.
+      neighbors within ``maxDist``, accumulated without any top-k.
       This diverges from lpm (which fits the k nearest within maxDist): on a
-      decimated map both see the same local surface, and the radius form is
-      ~15x faster on TPU.  ``knn`` still acts as the minimum neighbor count
+      decimated map both see the same local surface, and the radius form
+      skips the k-NN extraction.  ``knn`` still acts as the minimum neighbor count
       below which the neighborhood is treated as degenerate.
     - ``maxDist`` = inf: exact k-NN PCA (lpm semantics), batched KNN + one
       closed-form eigensolve.
@@ -270,8 +270,8 @@ class SurfaceNormalFilter(DataPointsFilter):
         mean = jnp.sum(neigh * w, axis=1) / cnt
         centered = (neigh - mean[:, None, :]) * w
         cov = jnp.einsum("nkd,nke->nde", centered, centered) / cnt[..., None]
-        # closed-form symmetric eigensolve (ops/eigen.py) — iterative
-        # batched eigh is ~10x slower on TPU for [N, 3, 3]
+        # closed-form symmetric eigensolve (ops/eigen.py) instead of the
+        # iterative batched eigh for [N, 3, 3]
         if batch.dim == 3:
             evals, normals = sym_eig3_smallest(cov)
         else:
@@ -291,13 +291,9 @@ class SurfaceNormalFilter(DataPointsFilter):
     def _apply_radius_pca(self, batch, k, max_dist):
         from ..ops.pca import radius_pca
         from ..utils.tracing import record_overflow
-        # sweep window scales with the radius: a q_tile of sorted queries
-        # plus 2r of refs must fit in W (pair work is N*W, so don't pay a
-        # 2 m-sized window for sub-metre neighborhoods)
-        W = 2048 if max_dist <= 1.0 else 4096
         cnt, mean, cov, overflow = radius_pca(
             batch.positions, batch.positions, batch.mask, batch.mask,
-            max_radius=max_dist, q_tile=1024, W=W)
+            max_radius=max_dist)
         record_overflow("surface_normal_sweep", overflow)
         if batch.dim == 3:
             evals, normals = sym_eig3_smallest(cov)
@@ -347,7 +343,7 @@ class OrientNormalsFilter(DataPointsFilter):
 class OctreeGridFilter(DataPointsFilter):
     """Spatial decimation to one representative per voxel.
 
-    TPU-native equivalent of lpm ``OctreeGridDataPointsFilter``
+    Equivalent of lpm ``OctreeGridDataPointsFilter``
     (``OctreeMapperModule.h:33``): lpm subdivides an octree until leaves are
     below ``maxSizeByNode``; here a uniform voxel grid of that edge length
     produces the same decimation density with a sort + segment pass instead

@@ -46,7 +46,7 @@ import numpy as np
 
 from . import se3
 from .points import PointBatch
-from .ops.nn import _use_pallas as _nn_use_pallas
+from .ops.engine import select_engine
 from .ops.nn_sweep import presort_ref
 
 __all__ = ["FusedScanStep"]
@@ -77,11 +77,12 @@ class FusedScanStep:
 
     @property
     def _use_presort(self) -> bool:
-        # the sweep matcher (radius-capped, TPU) sorts the reference by x;
-        # the reference only changes at merges, so the sorted pack is
-        # carried in the donated state instead of re-sorting every solve
+        # the sweep matcher (radius-capped, Triton engine) sorts the
+        # reference by x; the reference only changes at merges, so the
+        # sorted pack is carried in the donated state instead of re-sorting
+        # every solve
         return (np.isfinite(self._m.icp.match_max_dist)
-                and _nn_use_pallas())
+                and select_engine().sweep)
 
     def init_state(self, local: PointBatch, ref, pose, last_pose,
                    last_t_s: float):

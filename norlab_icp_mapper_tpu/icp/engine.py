@@ -1,4 +1,4 @@
-"""TPU-native ICP engine: the replacement for libpointmatcher's ICPSequence.
+"""ICP engine: the replacement for libpointmatcher's ICPSequence.
 
 The reference holds a stateful ``ICPSequence`` (``Mapper.h:23``) configured
 from the ``icp:`` YAML section (``Mapper.cpp:70-78``), gives it the local map
@@ -6,10 +6,12 @@ from the ``icp:`` YAML section (``Mapper.cpp:70-78``), gives it the local map
 (``Mapper.cpp:213``).  This engine reproduces that contract with an
 XLA-compiled solve:
 
-  - correspondence: tiled brute-force KNN (``ops/nn.py``) instead of a kd-tree
+  - correspondence: radius-capped KNN on the backend's engine
+    (``ops/engine.py``: Triton sorted sweep or grid hash) instead of a
+    kd-tree
   - outlier rejection: per-pair weights (trimmed-distance / max-distance)
   - minimization: fused 6-DoF (3-DoF in 2-D) Gauss-Newton step — residuals,
-    J^T J (6x6) and J^T r (6) accumulated as one MXU matmul, solved on-chip,
+    J^T J (6x6) and J^T r (6) accumulated as one f32 matmul, solved on-device,
     SE(3) exp update — or closed-form weighted SVD (Kabsch) for
     point-to-point
   - convergence: counter / differential / bound transformation checkers
@@ -31,7 +33,8 @@ import numpy as np
 from .. import se3
 from ..points import PointBatch
 from ..filters.core import FilterChain
-from ..ops.nn import knn, _use_pallas as _nn_use_pallas
+from ..ops.nn import knn
+from ..ops.engine import select_engine
 from ..ops.gridhash import build_grid, grid_hash_knn
 from ..utils.tracing import record_overflow
 
@@ -42,24 +45,6 @@ _GH_H = 1 << 15
 _GH_C = 128
 
 
-def _sweep_precision():
-    """Cross-term RANKING precision of the sweep matcher.
-
-    Default: exact f32 (6-pass HIGHEST).  The bf16 tiers were MEASURED on
-    the real steady-state map and refuted (committed artifact
-    ``SWEEP_PRECISION.json``, r5): even centered, 3-pass bf16x3 picks a
-    different neighbor for 26% of queries with median |d2| delta
-    5.5e-3 m^2 — a genuinely different correspondence on a 0.15 m-
-    decimated map, not a near-tie — while buying only 1.18x (the fused
-    sweep is not cross-term-bound at production shapes).  1-pass bf16 is
-    worse on every axis (68% disagreement, 856 match-flips, 1.43x).
-    Set ``NIM_TPU_SWEEP_PRECISION=bf16x3|bf16`` to trade exactness for
-    that measured speedup anyway.
-    """
-    import os
-    v = os.environ.get("NIM_TPU_SWEEP_PRECISION", "highest").lower()
-    return None if v in ("highest", "exact", "f32") else v
-
 def _rematch_every() -> int:
     """GN iterations per matcher pass (correspondence-reuse period).
 
@@ -69,9 +54,8 @@ def _rematch_every() -> int:
     correspondences.  Validated on the golden perturbed-odometry harness
     (baselines/validate_p2plane.py, 0.1634 m perturbed prior): recovered
     ATE 0.0115 m strict / 0.0128 m at period 2 / 0.0134 m at period 3 —
-    equivalent centimeter-scale recovery — while the steady-state GN
-    iteration drops 4.2 -> 3.1 ms.  The CPU test suite runs with this
-    default.  Set ``NIM_TPU_REMATCH_EVERY=1`` for lpm's strict
+    equivalent centimeter-scale recovery — at a third of the matcher
+    passes.  The CPU test suite runs with this default.  Set ``NIM_TPU_REMATCH_EVERY=1`` for lpm's strict
     match-every-iteration behavior.
     """
     import os
@@ -242,7 +226,7 @@ class ICPEngine:
             ref = self.reference_filters.apply(ref)
         self._ref = ref
         self._ref_presorted = None
-        if np.isfinite(self.match_max_dist) and _nn_use_pallas():
+        if np.isfinite(self.match_max_dist) and select_engine().sweep:
             from ..ops.nn_sweep import presort_ref
             self._ref_presorted = presort_ref(ref.positions, ref.mask)
 
@@ -315,7 +299,8 @@ class ICPEngine:
             minimizer=self.minimizer, max_iter=1, diff_checker=None,
             bound_checker=None,
             step_filter=(self.reading_step_filters._apply_impl
-                         if len(self.reading_step_filters) else None))
+                         if len(self.reading_step_filters) else None),
+            engine=select_engine())
         single = jax.jit(single)
         T = jnp.eye(self.dim + 1, dtype=jnp.float32)
         overlap = resid = 0.0
@@ -365,7 +350,8 @@ class ICPEngine:
                                  diff_checker=self.diff_checker,
                                  bound_checker=self.bound_checker,
                                  step_filter=step_fn,
-                                 rematch_every=_rematch_every())
+                                 rematch_every=_rematch_every(),
+                                 engine=select_engine())
 
     def _get_solve(self, n_cap: int, m_cap: int):
         key = (n_cap, m_cap, self.dim)
@@ -395,12 +381,13 @@ def _rot_angle(R: jax.Array) -> jax.Array:
 
 @functools.partial(jax.jit, static_argnames=(
     "dim", "k", "max_dist", "outlier_filters", "minimizer", "max_iter",
-    "diff_checker", "bound_checker", "step_filter", "rematch_every"))
+    "diff_checker", "bound_checker", "step_filter", "rematch_every",
+    "engine"))
 def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
                rng_key=None, ref_presorted=None, *,
                dim, k, max_dist, outlier_filters, minimizer, max_iter,
                diff_checker, bound_checker, step_filter=None,
-               rematch_every=1):
+               rematch_every=1, engine=None):
     """One fused ICP registration: while_loop{ match → weight → minimize }.
 
     ``ref_presorted`` optionally carries ``ops.nn_sweep.presort_ref``'s
@@ -422,13 +409,13 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
     if minimizer == "IdentityErrorMinimizer":
         k = 1
 
-    # radius-capped matcher -> per-backend engine (sorted-sweep + Pallas
-    # kernel on TPU, spatial hash elsewhere); the hash table is rebuilt per
-    # solve only on non-TPU backends where it is cheap relative to search.
+    # radius-capped matcher -> the backend's engine (``ops/engine.py``):
+    # the Triton sorted sweep, or the spatial hash whose table is rebuilt
+    # once per solve.
+    engine = engine or select_engine()
     gh_table = None
     sweep_presorted = None
-    sweep_q = None
-    if max_radius is not None and not _nn_use_pallas():
+    if max_radius is not None and not engine.sweep:
         gh_table, gh_overflow = build_grid(ref_pos, ref_mask, max_radius,
                                            H=_GH_H, C=_GH_C)
         record_overflow("icp_matcher_grid", gh_overflow)
@@ -466,16 +453,12 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
                                     max_radius=max_radius, H=_GH_H, C=_GH_C)
         elif max_radius is not None:
             from ..ops.nn_sweep import sweep_knn
-            # q_tile=1024: tighter per-tile x-spans keep the true candidate
-            # range inside W on the bundled data (2048-tiles overflowed at
-            # up to 11.7k candidates > W, silently degrading those tiles
-            # to nearest-in-window; measured worst span at 1024 = 7.4k)
             d2, idx, overflow = sweep_knn(p, ref_pos, cur_mask, ref_mask,
                                           k=k, max_radius=max_radius,
-                                          q_tile=1024, W=8192,
+                                          use_pallas=True,
+                                          interpret=engine.interpret,
                                           presorted=sweep_presorted,
-                                          assume_sorted=True,
-                                          precision=_sweep_precision())
+                                          assume_sorted=True)
             record_overflow("icp_matcher_sweep", overflow)
         else:
             d2, idx = knn(p, ref_pos, cur_mask, ref_mask, k=k,
@@ -529,7 +512,8 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
             Jf = J.reshape(-1, dof)
             rf = r.reshape(-1)
             wf = w.reshape(-1)
-            # normal equations on the MXU; this is the quantity psum-reduced
+            # normal equations (f32 dots at the package-wide HIGHEST
+            # precision, never TF32); this is the quantity psum-reduced
             # across shards in the distributed path (parallel/distributed.py)
             JtJ = (Jf * wf[:, None]).T @ Jf
             Jtr = (Jf * wf[:, None]).T @ rf

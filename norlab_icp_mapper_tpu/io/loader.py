@@ -2,7 +2,7 @@
 
 The data-loader side of the runtime: scans parse on background threads
 (native C++ parser when available) and upload to device ahead of the
-pipeline, so per-scan host IO overlaps device compute — the TPU analog of
+pipeline, so per-scan host IO overlaps device compute — the analog of
 the reference driving IO from a separate thread (``Map.cpp:29-57``).
 """
 from __future__ import annotations

@@ -12,7 +12,7 @@ Parity with reference ``Map.{h,cpp}``:
     ``"row_col_aisle"`` (``Map.cpp:87,209``).
   - global export/import (``Map.cpp:552-588``).
 
-TPU-native split: the local cloud is a fixed-capacity ``PointBatch`` on
+Device split: the local cloud is a fixed-capacity ``PointBatch`` on
 device; merging, post-filtering, and the in-window partition mask are XLA
 passes; cell binning/eviction is host-side numpy (it is IO/bookkeeping, the
 reference runs it on a background thread for the same reason —
@@ -242,8 +242,7 @@ class Map:
 
         The whole merge — module chain, sensor-frame post filters, frame
         transforms — compiles as ONE XLA program per shape bucket instead of
-        hundreds of eager op dispatches (critical on remote-compile TPU
-        backends).  All passes are fixed-capacity: the caller pre-sizes the
+        hundreds of eager op dispatches.  All passes are fixed-capacity: the caller pre-sizes the
         local buffer with scan headroom and modules ``insert`` into free
         slots, so the output capacity equals the input capacity."""
         cache_key = id(post_filters)

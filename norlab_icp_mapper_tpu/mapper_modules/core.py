@@ -14,6 +14,7 @@ return a batch with larger capacity (bucketed) when the map grows.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import jax
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 from .. import se3
 from ..points import PointBatch, insert
 from ..registry import Param, ParametrizedPlugin, Registry
+from ..ops.engine import select_engine
 from ..ops.nn import nn1
 from ..ops.voxel import voxel_select
 
@@ -204,7 +206,7 @@ class DynamicPointsMapperModule(MapperModule):
             pose,
             p["thresholdDynamic"], p["alpha"], p["beta"],
             p["beamHalfAngle"], p["epsilonA"], p["epsilonD"],
-            p["sensorMaxRange"])
+            p["sensorMaxRange"], engine=select_engine())
         return map_batch.with_descriptor("probabilityDynamic", new_prob)
 
 
@@ -224,11 +226,11 @@ def _spherical_angles(pts: jax.Array, radii: jax.Array) -> jax.Array:
     return jnp.stack([az, el], axis=1)
 
 
-@jax.jit
+@functools.partial(jax.jit, static_argnames=("engine",))
 def _dynamic_points_update(scan_pos, scan_mask, map_pos, map_mask,
                            map_normals, prob_dyn, pose,
                            threshold_dynamic, alpha, beta, beam_half_angle,
-                           eps_a, eps_d, sensor_max_range):
+                           eps_a, eps_d, sensor_max_range, engine=None):
     pose_inv = se3.inverse(pose)
     scan_s = se3.apply_points(pose_inv, scan_pos)  # sensor frame
     map_s = se3.apply_points(pose_inv, map_pos)
@@ -244,17 +246,15 @@ def _dynamic_points_update(scan_pos, scan_mask, map_pos, map_mask,
     map_ang = _spherical_angles(map_s, map_r)
 
     # angular 1-NN: map beams -> nearest scan beam, radius 2*beamHalfAngle
-    # (per-backend radius engine: Pallas brute force on TPU, spatial hash
-    # over the (elevation, azimuth) plane elsewhere).  The sweep sorts by
-    # azimuth, where lidar beams spread uniformly: a 1024-query tile spans
-    # ~0.1 rad, so W=1024 comfortably covers the candidate span at typical
-    # beamHalfAngle (~0.01 rad); overflow is recorded if it doesn't.
+    # (the backend's radius engine: sorted sweep over azimuth, or the
+    # spatial hash over the (azimuth, elevation) plane); overflow is
+    # recorded.
     from ..ops.nn import radius_knn
     radius = 2.0 * beam_half_angle
     d2k, idxk = radius_knn(map_ang, scan_ang, in_range, scan_mask, k=1,
                            max_radius=radius, gh_H=1 << 14, gh_C=64,
-                           q_tile=1024, W=1024,
-                           overflow_tag="dynamic_points_sweep")
+                           overflow_tag="dynamic_points_sweep",
+                           engine=engine)
     d2, idx = d2k[:, 0], idxk[:, 0]
     return dynamic_points_bayes(
         scan_s, scan_r, map_s, map_r, normals_s, prob_dyn, d2, idx, in_range,

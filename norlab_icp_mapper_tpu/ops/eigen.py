@@ -2,7 +2,7 @@
 
 ``jnp.linalg.eigh`` on [N, 3, 3] lowers to an iterative batched Jacobi sweep
 — needlessly slow for the surface-normal pass (one 3x3 per map point).
-These are the analytic alternatives: pure VPU elementwise math, fully fused
+These are the analytic alternatives: pure elementwise math, fully fused
 by XLA, no iteration.
 
 3x3: trigonometric (Cardano) eigenvalues + eigenvector from the product

@@ -1,9 +1,9 @@
 """Grid-hash (voxel-bucket) radius-bounded KNN.
 
-The brute-force matchers (``nn.py``/``nn_pallas.py``) touch every
-(query, ref) pair — N*M work.  For radius-capped searches (the ICP matcher's
-``maxDist``, the dynamic-points beam cone, radius-bounded normals) the
-TPU-native accelerator is a *spatial hash*:
+The brute-force matcher (``nn.py``) touches every (query, ref) pair — N*M
+work.  For radius-capped searches (the ICP matcher's ``maxDist``, the
+dynamic-points beam cone, radius-bounded normals) the XLA engine is a
+*spatial hash*:
 
   1. bucket reference points by voxel cell (cell edge >= search radius),
      hashing the 3 int cell coords into ``H`` buckets (power of two),

@@ -1,21 +1,18 @@
-"""Nearest-neighbor correspondence search: the TPU-native kd-tree replacement.
+"""Nearest-neighbor correspondence search: the kd-tree replacement.
 
 The reference delegates all KNN to libnabo kd-trees (``KDTreeMatcher`` in
 ``examples/config.yaml:56-60``; direct ``Nabo::NNS`` at
 ``PointDistanceMapperModule.cpp:30-36`` and
-``DynamicPointsMapperModule.cpp:75-78``).  Pointer-chasing trees map poorly to
-TPUs, so this module implements *tiled brute-force* KNN: the [N, M] squared
-distance matrix is never materialized — reference points stream through in
-tiles while a running top-k per query is maintained, a flash-attention-style
-schedule.  The heavy inner product rides the MXU via
-``-2 * Q @ R^T`` and the rest is VPU elementwise work, all fused by XLA.
+``DynamicPointsMapperModule.cpp:75-78``).  Pointer-chasing trees map poorly
+to accelerators, so unbounded k-NN here is *tiled brute force*: the [N, M]
+squared distance matrix is never materialized — reference points stream
+through in tiles while a running top-k per query is maintained, a
+flash-attention-style schedule, all fused by XLA.  Radius-capped k-NN
+(``radius_knn``) runs on the backend's engine (``ops/engine.py``).
 
 Semantics mirror libnabo: squared distances, ``inf`` + index ``-1`` for
 no-match (beyond ``max_radius`` or masked), self-matches allowed
 (``ALLOW_SELF_MATCH`` is the mode both reference call sites use).
-
-A Pallas kernel variant lives in ``ops/nn_pallas.py``; this file is the
-portable XLA implementation and the numerical oracle for it.
 """
 from __future__ import annotations
 
@@ -28,17 +25,6 @@ import jax.numpy as jnp
 __all__ = ["knn", "nn1"]
 
 _INF = jnp.inf
-
-
-def _use_pallas() -> bool:
-    """Use the Pallas kernel on TPU; XLA path elsewhere (and under tests)."""
-    import os
-    if os.environ.get("NIM_TPU_DISABLE_PALLAS"):
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
 
 
 def _pad_rows(x: jax.Array, target: int, fill: float = 0.0) -> jax.Array:
@@ -62,15 +48,7 @@ def knn(
 
     Returns ``(dists2 f32[N, k], idx i32[N, k])`` sorted ascending per query.
     Masked-out or out-of-radius results have ``dists2 = inf`` and ``idx = -1``.
-
-    Dispatches to the Pallas TPU kernel on TPU backends (VMEM-resident
-    distance blocks, ~20x faster than the XLA sort-based merge); the XLA
-    path below is the portable oracle.
     """
-    if _use_pallas():
-        from .nn_pallas import knn_pallas
-        return knn_pallas(query, ref, query_mask, ref_mask, k=k,
-                          max_radius=max_radius)
     return _knn_xla(query, ref, query_mask, ref_mask, k=k,
                     max_radius=max_radius, ref_tile=ref_tile)
 
@@ -101,8 +79,8 @@ def _knn_xla(query, ref, query_mask=None, ref_mask=None, k=1,
         best_d, best_i = carry
         tile_idx, r, rm = inputs
         r2 = jnp.sum(r * r, axis=1)  # [Tr]
-        # MXU: [N, D] @ [D, Tr]. HIGHEST precision: the expanded form
-        # q^2 + r^2 - 2qr cancels catastrophically under bf16 matmul defaults
+        # [N, D] @ [D, Tr] at HIGHEST precision: the expanded form
+        # q^2 + r^2 - 2qr cancels catastrophically under TF32 / bf16 passes
         cross = jnp.dot(query, r.T,
                         precision=jax.lax.Precision.HIGHEST)  # f32[N, Tr]
         d2 = q2 + r2[None, :] - 2.0 * cross
@@ -140,28 +118,26 @@ def nn1(query, ref, query_mask=None, ref_mask=None, max_radius=None,
 
 def radius_knn(query, ref, query_mask=None, ref_mask=None, k: int = 1,
                max_radius=None, gh_H: int = 1 << 15, gh_C: int = 128,
-               q_tile: int = 2048, W: int = 8192, overflow_tag: str = ""):
-    """Radius-capped KNN with per-backend engine selection.
+               overflow_tag: str = "", engine=None):
+    """Radius-capped KNN on the backend's engine (``ops/engine.py``): the
+    sorted sweep (contiguous windows, no gathers) or the spatial grid
+    hash, whose 27*C candidate model is 10-100x less work than brute
+    force under XLA.  Same output contract as ``knn``.
 
-    On TPU the sorted-sweep + Pallas kernel wins (contiguous windows, no
-    gathers): XLA lowers the grid-hash's big gathers (bucket table +
-    candidate positions) to pathological per-element loops there. On
-    CPU/GPU the grid-hash's 27*C candidate model is 10-100x less work than
-    brute force.  Same output contract as ``knn``.
-
-    ``W`` bounds the sorted-sweep candidate window (pair work is N*W);
-    callers with structure that concentrates candidates (e.g. azimuth-sorted
-    angular NN) should pass a tighter W.  Window/bucket overflow (degraded
+    Window/bucket overflow (degraded
     matches) is reported through ``utils.tracing.record_overflow`` under
     ``overflow_tag`` when one is given (SURVEY "no silent caps").
     """
     if max_radius is None:
         return knn(query, ref, query_mask, ref_mask, k=k)
-    if _use_pallas():
+    from .engine import select_engine
+    engine = engine or select_engine()
+    if engine.sweep:
         from .nn_sweep import sweep_knn
         d, idx, overflow = sweep_knn(query, ref, query_mask, ref_mask, k=k,
-                                     max_radius=max_radius, q_tile=q_tile,
-                                     W=W)
+                                     max_radius=max_radius,
+                                     use_pallas=True,
+                                     interpret=engine.interpret)
     else:
         from .gridhash import build_grid, grid_hash_knn
         if ref_mask is None:

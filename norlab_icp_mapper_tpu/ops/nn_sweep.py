@@ -1,32 +1,37 @@
 """Sorted-sweep windowed KNN: radius-capped search at a fraction of the
-brute-force pair count, TPU-friendly (no gathers of irregular buckets).
+brute-force pair count, with contiguous (gather-free) candidate windows.
 
 Idea: sort reference AND query points along one axis (x).  A query tile's
 candidates then live in the contiguous ref range whose x lies within
 ``[tile_min - r, tile_max + r]`` — found with two ``searchsorted``.  Each
-query tile runs the brute-force top-k against a fixed-width window ``W`` of
-the sorted refs.  Pair work drops from N*M to N*W — typically 8-30x less
-for lidar maps spanning 100+ m with a 2 m matcher radius.
+query tile runs the brute-force top-k against that window of the sorted
+refs, capped at ``W`` refs.  Pair work drops from N*M to N*W.
 
-The TPU path is ONE Pallas launch for the whole sweep: grid
-``(query_tiles, window_blocks)`` with the per-tile window start fed through
-scalar prefetch, so the ref BlockSpec's index map jumps straight to each
-tile's candidate window — no per-tile kernel dispatch, no ``dynamic_slice``
-window copies through HBM (the r4 design dispatched one small kernel per
-1024-query tile under ``lax.map`` and ran at a third of the kernel's own
-pair rate; see VERDICT r4 weak #1).
+Two implementations share the wrapper:
 
-Coordinates are centered on the reference centroid before the kernel (the
+  - the GPU kernel (``use_pallas=True``): ONE Pallas launch through Triton
+    (``backend="triton"``), one program per query tile of ``tq`` sorted
+    queries.  Each program loads its own window start and block count and
+    walks its window in blocks of ``tr`` refs with a loop inside the kernel
+    (``sweep_window_walk``, shared with the radius-PCA kernel in
+    ``ops/pca.py``); the running top-k (k <= 6) stays in registers and only
+    ``[k, N]`` is written back.  Distances are exact f32 subtract-first
+    squares on the CUDA cores: at D <= 3 a tensor-core dot is the wrong unit,
+    and TF32 would misrank neighbours.
+  - the portable XLA path (``use_pallas=False``): per-tile ``dynamic_slice``
+    windows under ``lax.map``, brute-force top-k per window.
+
+Coordinates are centered on the reference centroid before either path (the
 centroid is cached in the presort pack): squared distances are translation
-invariant, and smaller magnitudes shrink the absolute error of every matmul
-precision tier (measured in ``baselines/sweep_precision.py``).
+invariant, and small magnitudes keep the f32 error at the map *extent*
+instead of the map *position*.
 
-Exactness: guaranteed when every tile's true candidate span fits in ``W``
-(and the matmul runs at f32 precision — see ``precision``).  The third
-return value ``overflow`` counts live query tiles whose true candidate span
-exceeded ``W`` — those tiles degrade to nearest-within-window (still
-radius-verified).  Callers must surface it (SURVEY "no silent caps");
-``ops.nn.radius_knn`` forwards it to ``utils.tracing.record_overflow``.
+Exactness: guaranteed when every tile's true candidate span fits in ``W``.
+The third return value ``overflow`` counts live query tiles whose true
+candidate span exceeded ``W`` — those tiles degrade to
+nearest-within-window (still radius-verified).  Callers must surface it
+(SURVEY "no silent caps"); ``ops.nn.radius_knn`` forwards it to
+``utils.tracing.record_overflow``.
 """
 from __future__ import annotations
 
@@ -35,37 +40,51 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .nn_pallas import knn_pallas, planarize, BIG
+__all__ = ["sweep_knn", "presort_ref", "sweep_window_walk", "BIG", "W_MAX"]
 
-__all__ = ["sweep_knn", "presort_ref", "presort_queries"]
+BIG = 1.0e9  # coordinate sentinel for invalid / padding points
+_HUGE = 1.0e30  # distance sentinel inside the kernel
 
-_HUGE = 1.0e30
-_TR = 512  # ref window block (sweep grid's minor axis)
+# GPU kernel tiling: ``tq`` sorted queries per program, ``tr`` refs per
+# window block (powers of two, as Triton requires).  Small query tiles keep
+# each tile's x-span — and so its window — narrow.
+TQ = 8
+TR = 512
+NUM_WARPS = 4
+NUM_STAGES = 2
+W_MAX = 16384  # default cap on a query tile's window (refs)
+_PLANAR_PAD = W_MAX + TR  # window slack of the cached planar ref
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-@functools.partial(jax.jit, static_argnames=("tr",))
-def presort_ref(ref: jax.Array, ref_mask: jax.Array, tr: int = _TR):
+def planar(points: jax.Array, mask: Optional[jax.Array],
+           width: int) -> jax.Array:
+    """[N, D] + mask -> planar [D, width] with invalid / padding columns at
+    BIG (their distance to any real point exceeds every radius)."""
+    n, d = points.shape
+    pts = points if mask is None else jnp.where(mask[:, None], points, BIG)
+    return jnp.full((d, width), BIG, jnp.float32).at[:, :n].set(pts.T)
+
+
+@jax.jit
+def presort_ref(ref: jax.Array, ref_mask: jax.Array):
     """Sort refs by x, invalid refs to the end (x -> +BIG), CENTERED on the
     valid-ref centroid.  The pack ``(ref_s, ref_mask_s, ref_xs, ref_order,
-    ref_planar, center)`` feeds ``sweep_knn``'s ``presorted`` argument —
-    the sort (+gather+planarize) is ~5 ms at map shapes and the reference
-    cloud is static across GN iterations (and across scans until a merge),
-    so hoisting it out of the solve loop is a direct per-iteration saving.
+    ref_planar, center)`` feeds ``sweep_knn``'s ``presorted`` argument: the
+    reference cloud is static across GN iterations (and across scans until
+    a merge), so the sort is hoisted out of the solve loop.
 
     All spatial fields are centered: ``sweep_knn`` subtracts the same
     ``center`` from the queries, which leaves every pairwise distance
-    bit-for-bit meaningful while keeping coordinate magnitudes at the map
-    *extent* (tens of m) instead of the map *position* (can be km)."""
+    unchanged while keeping coordinate magnitudes at the map *extent* (tens
+    of m) instead of the map *position* (can be km)."""
     m = ref.shape[0]
-    dim = ref.shape[1]
     maskf = ref_mask.astype(jnp.float32)
     denom = jnp.maximum(jnp.sum(maskf), 1.0)
     center = jnp.sum(jnp.where(ref_mask[:, None], ref, 0.0), axis=0) / denom
@@ -75,214 +94,140 @@ def presort_ref(ref: jax.Array, ref_mask: jax.Array, tr: int = _TR):
     ref_s = ref_c[ref_order]
     ref_mask_s = ref_mask[ref_order]
     ref_xs = ref_x[ref_order]
-    m_pad = _round_up(max(m, 1024), 1024)  # lcm of the supported r_tile sizes
-    ref_planar = planarize(ref_s, ref_mask_s, m_pad)
+    ref_planar = planar(ref_s, ref_mask_s, _round_up(m, TR) + _PLANAR_PAD)
     return (ref_s, ref_mask_s, ref_xs, ref_order, ref_planar, center)
 
 
-@jax.jit
-def presort_queries(pos: jax.Array, mask: jax.Array):
-    """Query sort order by x (invalid to the end) + its inverse permutation.
-
-    An ICP solve calls ``sweep_knn`` once per GN iteration on the SAME
-    reading moved by a slightly different rigid transform: the x ordering
-    computed from the initial positions stays near-sorted for every
-    iteration (tile spans are re-measured from the true moved coordinates
-    each call, so a slightly stale order only widens windows, never breaks
-    correctness).  Computing ``(q_order, inv)`` once per solve hoists the
-    argsort + inverse-permutation scatter out of the iteration loop."""
-    q_x = jnp.where(mask, pos[:, 0], BIG)
-    q_order = jnp.argsort(q_x).astype(jnp.int32)
-    n = pos.shape[0]
-    inv = jnp.zeros((n,), jnp.int32).at[q_order].set(
-        jnp.arange(n, dtype=jnp.int32))
-    return q_order, inv
+def tile_windows(qx_s, qm_s, ref_xs, r, tile: int, W: int):
+    """Per query tile of the sorted queries: the first candidate ref
+    ``lo``, the candidate span ``hi - lo``, liveness, and the overflow count
+    (live tiles whose span exceeds ``W``)."""
+    n_tiles = qx_s.shape[0] // tile
+    qx_t = qx_s.reshape(n_tiles, tile)
+    qm_t = qm_s.reshape(n_tiles, tile)
+    tile_min = jnp.min(jnp.where(qm_t, qx_t, BIG), axis=1)
+    tile_max = jnp.max(jnp.where(qm_t, qx_t, -BIG), axis=1)
+    lo = jnp.searchsorted(ref_xs, tile_min - r).astype(jnp.int32)
+    hi = jnp.searchsorted(ref_xs, tile_max + r).astype(jnp.int32)
+    live = jnp.any(qm_t, axis=1)
+    overflow = jnp.sum((live & ((hi - lo) > W)).astype(jnp.int32))
+    return lo, hi - lo, live, overflow
 
 
 # --------------------------------------------------------------------------
-# the fused single-launch kernel
+# the Triton kernel
 # --------------------------------------------------------------------------
 
-_QBITS = 17  # quantized-distance bits of a packed key
-_RBITS = 14  # window-row bits (w_blocks * tr <= 16384)
-_QMAX = (1 << _QBITS) - 1
-_KEY_SENTINEL = np.int32((1 << 31) - 1)
-
-
-def _fused_kernel(start_ref, live_ref, params_ref, q_ref, r_ref, d_out,
-                  i_out, *, k, tq, tr, dim, precision, packed):
-    """Grid (query tiles, window blocks).  Ranks pairs in SHIFTED distance
-    space ``s = |r|^2 - 2 q.r`` (see ``nn_pallas._kernel`` — the wrapper
-    adds ``|q|^2`` back on the tiny [N, k] output).
-
-    ``packed`` mode (the k>1 epilogue): the per-pair TRUE distance is
-    quantized to 17 bits at radius scale (step = r^2 / 2^17 ~ 3e-5 m^2
-    for a 2 m matcher) and packed with the 14-bit window row into one
-    i32 key, so the running top-k is k rounds of plain integer mins — no
-    argmin, no separate index plane.  The wrapper decodes rows and
-    re-ranks the survivors in exact f32, so quantization only matters
-    when the k-th and (k+1)-th candidates tie within one step."""
+def sweep_window_walk(lo_ref, nblk_ref, q_ref, r_ref, init, epilogue, *,
+                      tq: int, tr: int, dim: int):
+    """Shared body of the sweep kernels: load this program's ``tq`` sorted
+    queries, then walk its ref window in blocks of ``tr`` refs.  Each block
+    gets exact f32 subtract-first squared distances ``d2 [tq, tr]`` and is
+    folded into the carry by ``epilogue(carry, d2, r_rows, offset)``.
+    Returns ``(query slice, final carry)``."""
     i = pl.program_id(0)
-    j = pl.program_id(1)
+    qs = pl.ds(pl.multiple_of(i * tq, tq), tq)
+    q = [q_ref[d, qs] for d in range(dim)]
+    start = lo_ref[i]
 
-    @pl.when(j == 0)
-    def _init():
-        if packed:
-            i_out[:, :] = jnp.full((k, tq), _KEY_SENTINEL, jnp.int32)
-        else:
-            d_out[:, :] = jnp.full((k, tq), _HUGE, jnp.float32)
-            i_out[:, :] = jnp.full((k, tq), -1, jnp.int32)
+    def block(j, carry):
+        off = start + j * tr
+        r = [r_ref[d, pl.ds(off, tr)] for d in range(dim)]
+        d2 = jnp.zeros((tq, tr), jnp.float32)
+        for d in range(dim):
+            dd = q[d][:, None] - r[d][None, :]
+            d2 = d2 + dd * dd
+        return epilogue(carry, d2, r, off)
 
-    @pl.when(live_ref[i] != 0)
-    def _compute():
-        q = q_ref[:dim, :]  # [D, TQ]
-        r = r_ref[:dim, :]  # [D, TR]
+    return qs, jax.lax.fori_loop(0, nblk_ref[i], block, init)
 
-        def dot_rq(rr, qq):
-            return jax.lax.dot_general(
-                rr, qq, dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.DEFAULT)
 
-        if precision is None or precision == "vpu":
-            # EXACT f32 distances straight on the VPU: for D=3 the MXU
-            # route pads the contraction to the array's 128 depth (and
-            # HIGHEST multiplies that by 6 passes), so its pair-rate roof
-            # is 197e12/(128*6) = 256 Gpair/s — while ~3*(sub,fma) VPU
-            # ops/pair roof at ~430 Gpair/s.  Subtract-first squares are
-            # also the numerically IDEAL form (no |q|^2/|r|^2
-            # cancellation, no shifted-distance reconstruction).
-            s = jnp.zeros((tr, tq), jnp.float32)
-            for d_ in range(dim):
-                dd = r[d_][:, None] - q[d_][None, :]
-                s = s + dd * dd  # true d2 in s
-        elif precision == "bf16":
-            # 1 MXU pass; candidate ranking only — the wrapper re-ranks
-            # the survivors in exact f32 (centered coords keep the bf16
-            # error small; measured in baselines/sweep_precision.py)
-            r2 = jnp.sum(r * r, axis=0)
-            cross = dot_rq(r.astype(jnp.bfloat16), q.astype(jnp.bfloat16))
-            s = r2[:, None] - 2.0 * cross
-        elif precision == "bf16x3":
-            # 3-pass bf16x3 f32 emulation (Mosaic has no Precision.HIGH):
-            # x = hi + lo with hi = bf16(x); drop the lo*lo term
-            rh = r.astype(jnp.bfloat16)
-            qh = q.astype(jnp.bfloat16)
-            rl = (r - rh.astype(jnp.float32)).astype(jnp.bfloat16)
-            ql = (q - qh.astype(jnp.float32)).astype(jnp.bfloat16)
-            cross = dot_rq(rh, qh) + (dot_rq(rh, ql) + dot_rq(rl, qh))
-            r2 = jnp.sum(r * r, axis=0)
-            s = r2[:, None] - 2.0 * cross
-        else:  # exact f32 via the MXU (6-pass) — kept for comparison
-            r2 = jnp.sum(r * r, axis=0)
-            cross = jax.lax.dot_general(
-                r, q, dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST)
-            s = r2[:, None] - 2.0 * cross
-        base = (start_ref[i] + j) * tr
+def _knn_kernel(lo_ref, nblk_ref, r2_ref, q_ref, r_ref, d_out, i_out, *, k,
+                tq, tr, dim):
+    """Running top-k per query, sorted ascending, kept in registers.
 
-        if packed:
-            if precision is None or precision == "vpu":
-                d2 = s  # already true squared distances
-            else:
-                q2 = jnp.sum(q * q, axis=0)  # [TQ]
-                d2 = jnp.maximum(s + q2[None, :], 0.0)
-            inv_step = jnp.float32(_QMAX) / params_ref[0]  # params[0]=r^2
-            qd = jnp.minimum(d2 * inv_step,
-                             jnp.float32(_QMAX)).astype(jnp.int32)
-            row = jax.lax.broadcasted_iota(jnp.int32, (tr, tq), 0) + j * tr
-            key = (qd << _RBITS) | row  # [TR, TQ]
-            cat = jnp.concatenate([key, i_out[:, :]], axis=0)
-            out_rows = []
-            for t in range(k):
-                m = jnp.min(cat, axis=0)  # [TQ]
-                out_rows.append(m[None, :])
-                if t + 1 < k:
-                    cat = jnp.where(cat == m[None, :], _KEY_SENTINEL, cat)
-            i_out[:, :] = jnp.concatenate(out_rows, axis=0)
-            return
+    k == 1: one min + argmin per block.  k > 1: pairs beyond the radius are
+    dropped first, then up to k rounds extract the block minimum and insert
+    it into the sorted list; the rounds stop as soon as no query's block
+    minimum beats its current k-th best (usually after one or two rounds
+    once the nearest blocks have been seen)."""
+    cols = jax.lax.broadcasted_iota(jnp.int32, (tq, tr), 1)
 
-        if k == 1:
-            m = jnp.min(s, axis=0)  # [TQ]
-            a = jnp.argmin(s, axis=0).astype(jnp.int32) + base
-            best = d_out[0, :]
-            upd = m < best
-            d_out[0, :] = jnp.where(upd, m, best)
-            i_out[0, :] = jnp.where(upd, a, i_out[0, :])
-            return
-
-        row_ids = jax.lax.broadcasted_iota(jnp.int32, (tr, tq), 0) + base
-        cat_d = jnp.concatenate([s, d_out[:, :]], axis=0)  # [TR+K, TQ]
-        cat_i = jnp.concatenate([row_ids, i_out[:, :]], axis=0)
-        rows = jax.lax.broadcasted_iota(jnp.int32, (tr + k, tq), 0)
-
-        d_rows = []
-        i_rows = []
+    def insert(bd, bi, v, vi):
+        bd, bi = list(bd), list(bi)
         for t in range(k):
-            mn = jnp.min(cat_d, axis=0)
-            a = jnp.argmin(cat_d, axis=0).astype(jnp.int32)
-            sel = rows == a[None, :]
-            isel = jnp.sum(jnp.where(sel, cat_i, 0), axis=0)
-            d_rows.append(mn[None, :])
-            i_rows.append(isel[None, :])
-            if t + 1 < k:
-                cat_d = jnp.where(sel, _HUGE, cat_d)
+            lt = v < bd[t]
+            bd[t], v = jnp.where(lt, v, bd[t]), jnp.where(lt, bd[t], v)
+            bi[t], vi = jnp.where(lt, vi, bi[t]), jnp.where(lt, bi[t], vi)
+        return tuple(bd), tuple(bi)
 
-        d_out[:, :] = jnp.concatenate(d_rows, axis=0)
-        i_out[:, :] = jnp.concatenate(i_rows, axis=0)
+    def epilogue(carry, d2, r, off):
+        bd, bi = carry
+        if k == 1:
+            m = jnp.min(d2, axis=1)
+            a = jnp.argmin(d2, axis=1).astype(jnp.int32) + off
+            upd = m < bd[0]
+            return ((jnp.where(upd, m, bd[0]),),
+                    (jnp.where(upd, a, bi[0]),))
+        d2 = jnp.where(d2 <= r2_ref[0], d2, _HUGE)
+
+        def more(s):
+            t, _, m, bd_, _ = s
+            beats = jnp.sum((m < bd_[k - 1]).astype(jnp.int32))
+            return (t < k) & (beats > 0)
+
+        def extract(s):
+            t, d2_, m, bd_, bi_ = s
+            a = jnp.argmin(d2_, axis=1).astype(jnp.int32)
+            bd_, bi_ = insert(bd_, bi_, m, a + off)
+            d2_ = jnp.where(cols == a[:, None], _HUGE, d2_)
+            return t + 1, d2_, jnp.min(d2_, axis=1), bd_, bi_
+
+        _, _, _, bd, bi = jax.lax.while_loop(
+            more, extract, (0, d2, jnp.min(d2, axis=1), bd, bi))
+        return bd, bi
+
+    init = (tuple(jnp.full((tq,), _HUGE, jnp.float32) for _ in range(k)),
+            tuple(jnp.full((tq,), -1, jnp.int32) for _ in range(k)))
+    qs, (bd, bi) = sweep_window_walk(lo_ref, nblk_ref, q_ref, r_ref, init,
+                                     epilogue, tq=tq, tr=tr, dim=dim)
+    for t in range(k):
+        d_out[t, qs] = bd[t]
+        i_out[t, qs] = bi[t]
 
 
-@functools.partial(jax.jit, static_argnames=("k", "tq", "tr", "w_blocks",
-                                             "dim", "precision", "packed"))
-def _sweep_fused(start_blk, live, params, qp, rp, *, k, tq, tr, w_blocks,
-                 dim, precision=None, packed=False):
-    n_pad = qp.shape[1]
-    m_pad = rp.shape[1]
-    n_tiles = n_pad // tq
-    grid = (n_tiles, w_blocks)
-    if packed:
-        assert w_blocks * tr <= (1 << _RBITS), (w_blocks, tr)
-    kern = functools.partial(_fused_kernel, k=k, tq=tq, tr=tr, dim=dim,
-                             precision=precision, packed=packed)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((8, tq), lambda i, j, s_, lv, pr: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, tr), lambda i, j, s_, lv, pr: (0, s_[i] + j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((k, tq), lambda i, j, s_, lv, pr: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, tq), lambda i, j, s_, lv, pr: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
-    passes = {"bf16": 1, "bf16x3": 3}.get(precision, 6)
-    d, i = pl.pallas_call(
+@functools.partial(jax.jit, static_argnames=("k", "tq", "interpret"))
+def sweep_knn_triton(lo, nblk, r2, qp, rp, *, k: int, tq: int = TQ,
+                     interpret: bool = False):
+    """The Triton sweep kernel on planar inputs.
+
+    ``lo``/``nblk``: i32[n_tiles] window start (sorted-ref index) and block
+    count (of ``TR``-ref blocks) per query tile; ``r2``: f32[1] squared
+    radius; ``qp``: f32[D, n_tiles*tq] sorted queries; ``rp``:
+    f32[D, >= max(lo + nblk*TR)] sorted refs.  Returns
+    ``(d2 [k, n], idx [k, n])`` with idx into the sorted refs, -1 / HUGE
+    where fewer than k candidates were seen."""
+    dim, n_pad = qp.shape
+    kern = functools.partial(_knn_kernel, k=k, tq=tq, tr=TR, dim=dim)
+    return pl.pallas_call(
         kern,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((k, n_pad), jnp.float32),
-            jax.ShapeDtypeStruct((k, n_pad), jnp.int32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_pad * w_blocks * tr * (dim * passes
-                                               + (2 if k == 1 else 3 * k)),
-            bytes_accessed=8 * (n_pad + n_tiles * w_blocks * tr) * 4
-            + 2 * k * n_pad * 4,
-            transcendentals=0,
-        ),
-    )(start_blk, live, params, qp, rp)
-    return d, i
+        grid=(n_pad // tq,),
+        out_shape=[jax.ShapeDtypeStruct((k, n_pad), jnp.float32),
+                   jax.ShapeDtypeStruct((k, n_pad), jnp.int32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
+        interpret=interpret,
+        name="sweep_knn",
+    )(lo, nblk, r2, qp, rp)
 
+
+# --------------------------------------------------------------------------
+# wrapper
+# --------------------------------------------------------------------------
 
 @functools.partial(jax.jit, static_argnames=("k", "q_tile", "W",
-                                             "use_pallas", "precision",
-                                             "r_tile", "packed",
+                                             "use_pallas", "interpret",
                                              "assume_sorted"))
 def sweep_knn(
     query: jax.Array,  # f32[N, D]
@@ -291,16 +236,12 @@ def sweep_knn(
     ref_mask: Optional[jax.Array] = None,
     k: int = 1,
     max_radius=2.0,
-    q_tile: int = 4096,
-    W: int = 8192,
-    use_pallas: bool = True,
+    q_tile: Optional[int] = None,  # query tile; default TQ (kernel) or
+                                   # 1024 (XLA path)
+    W: int = W_MAX,
+    use_pallas: bool = False,
+    interpret: bool = False,
     presorted=None,
-    presorted_q=None,  # optional ``presort_queries`` output for ``query``
-    r_tile: int = _TR,  # ref window block (grid minor axis); 512 or 1024
-    packed=None,  # packed-key epilogue; None = auto (on for k > 1).
-                  # Ranking and reported distances quantized to r^2/2^17
-                  # (~3e-5 m^2 at r=2); validated against the exact kernel
-                  # on real map data (SWEEP_PRECISION.json).
     assume_sorted: bool = False,
                   # True: `query` is ALREADY in ascending-x (sweep) order
                   # with invalid rows at positions the mask marks — skips
@@ -309,25 +250,19 @@ def sweep_knn(
                   # its reading once per solve and keeps the whole GN loop
                   # in sweep order (every consumer is an order-invariant
                   # reduction), saving two [N,*] gathers per iteration.
-    precision=None,  # cross-term RANKING precision: None = exact f32
-                     # (6 MXU passes); "bf16x3" = 3-pass f32 emulation;
-                     # "bf16" = 1 pass.  Reported distances are exact f32
-                     # in every mode (post-kernel re-rank); the bf16 tiers
-                     # can only mis-pick *which* near-tied neighbor wins —
-                     # agreement is measured on real map data by
-                     # baselines/sweep_precision.py.
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """Radius-capped KNN via the sorted sweep.
 
     Returns ``(dists2 [N, k], idx [N, k], overflow i32)`` — ``overflow`` is
     the number of live query tiles whose candidate span exceeded ``W``.
     ``presorted`` optionally supplies :func:`presort_ref`'s output (must
-    have been built from the same ``ref``/``ref_mask``)."""
-    if precision is not None and not isinstance(precision, str):
-        precision = {jax.lax.Precision.HIGH: "bf16x3",
-                     jax.lax.Precision.DEFAULT: "bf16"}.get(precision)
+    have been built from the same ``ref``/``ref_mask``).  ``use_pallas``
+    selects the Triton kernel (``interpret=True`` runs it in the Pallas
+    interpreter, for CPU tests)."""
     n, dim = query.shape
     m = ref.shape[0]
+    if q_tile is None:
+        q_tile = TQ if use_pallas else 1024
     if query_mask is None:
         query_mask = jnp.ones((n,), bool)
     if ref_mask is None:
@@ -335,11 +270,9 @@ def sweep_knn(
     W = min(W, m)
     r = jnp.float32(max_radius)
 
-    if presorted is not None:
-        ref_s, ref_mask_s, ref_xs, ref_order, ref_planar, center = presorted
-    else:
-        ref_s, ref_mask_s, ref_xs, ref_order, ref_planar, center = \
-            presort_ref(ref, ref_mask)
+    if presorted is None:
+        presorted = presort_ref(ref, ref_mask)
+    ref_s, ref_mask_s, ref_xs, ref_order, ref_planar, center = presorted
 
     # center + sort queries by x; invalid queries to the end
     query = query - center
@@ -348,120 +281,47 @@ def sweep_knn(
     pad = n_pad - n
     if assume_sorted:
         q_order = inv = None
-        q_s = jnp.pad(query, ((0, pad), (0, 0)), constant_values=BIG)
-        qm_s = jnp.pad(query_mask, (0, pad))
-        qx_s = jnp.pad(q_x, (0, pad), constant_values=BIG)
     else:
-        if presorted_q is not None:
-            q_order, inv = presorted_q
-        else:
-            q_order = jnp.argsort(q_x)
-            inv = jnp.zeros((n,), jnp.int32).at[q_order].set(
-                jnp.arange(n, dtype=jnp.int32))
-        q_s = jnp.pad(query[q_order], ((0, pad), (0, 0)),
-                      constant_values=BIG)
-        qm_s = jnp.pad(query_mask[q_order], (0, pad))
-        qx_s = jnp.pad(q_x[q_order], (0, pad), constant_values=BIG)
+        q_order = jnp.argsort(q_x)
+        inv = jnp.zeros((n,), jnp.int32).at[q_order].set(
+            jnp.arange(n, dtype=jnp.int32))
+        query, query_mask, q_x = query[q_order], query_mask[q_order], \
+            q_x[q_order]
+    q_s = jnp.pad(query, ((0, pad), (0, 0)), constant_values=BIG)
+    qm_s = jnp.pad(query_mask, (0, pad))
+    qx_s = jnp.pad(q_x, (0, pad), constant_values=BIG)
 
-    n_tiles = n_pad // q_tile
-    qx_tiles = qx_s.reshape(n_tiles, q_tile)
-    qm_tiles2 = qm_s.reshape(n_tiles, q_tile)
-    tile_min = jnp.min(jnp.where(qm_tiles2, qx_tiles, BIG), axis=1)
-    tile_max = jnp.max(jnp.where(qm_tiles2, qx_tiles, -BIG), axis=1)
-    lo = jnp.searchsorted(ref_xs, tile_min - r).astype(jnp.int32)
-    hi = jnp.searchsorted(ref_xs, tile_max + r).astype(jnp.int32)
-    live = jnp.any(qm_tiles2, axis=1)
-    overflow = jnp.sum((live & ((hi - lo) > W)).astype(jnp.int32))
+    lo, span, live, overflow = tile_windows(qx_s, qm_s, ref_xs, r, q_tile, W)
 
     if use_pallas:
-        # ---- fused single-launch path: the window start is block-aligned
-        # DOWN (start <= lo) and the kernel reads w_blocks = W/TR + 1
-        # blocks, so coverage always spans [lo, lo + W] regardless of
-        # alignment loss.
-        m_pad = ref_planar.shape[1]
-        tr = r_tile
-        if m_pad % tr:
-            ref_planar = jnp.pad(ref_planar,
-                                 ((0, 0), (0, tr - m_pad % tr)),
-                                 constant_values=BIG)
-            m_pad = ref_planar.shape[1]
-        w_blocks = -(-W // tr) + 1
-        if m_pad < w_blocks * tr:
-            ref_planar = jnp.pad(ref_planar,
-                                 ((0, 0), (0, w_blocks * tr - m_pad)),
-                                 constant_values=BIG)
-            m_pad = w_blocks * tr
-        start_blk = jnp.clip(lo // tr, 0, m_pad // tr - w_blocks)
-        qp = planarize(q_s, qm_s, n_pad)
-        if packed is None:
-            # packed keys win when the per-pair top-k merge dominates
-            # (k > 1); k=1's two-op merge is already cheap
-            packed = k > 1
-        params = (r * r).reshape(1).astype(jnp.float32)
-        d_t, i_t = _sweep_fused(start_blk, live.astype(jnp.int32), params,
-                                qp, ref_planar, k=k, tq=q_tile, tr=tr,
-                                w_blocks=w_blocks, dim=dim,
-                                precision=precision, packed=packed)
-        if packed:
-            # decode (quantized d2 | window row) keys -> sorted-ref ids and
-            # dequantized distances — ZERO gathers (the r5 breakdown
-            # measured XLA's [N,k,D] candidate row-gathers at ~7 ms for
-            # k=3, dwarfing the kernel itself).  Invalid refs and planar
-            # padding carry BIG coordinates, so their quantized distance
-            # is guaranteed clamped to QMAX — the strict qd < QMAX check
-            # excludes them without a mask gather.
-            keys = i_t[:, :n].T  # [N, k], ascending per query
-            row = keys & ((1 << _RBITS) - 1)
-            qd = keys >> _RBITS
-            tile_of = (jnp.arange(n, dtype=jnp.int32)
-                       // q_tile)  # position in the SORTED query order
-            i_sorted = start_blk[tile_of][:, None] * tr + row
-            step = (r * r) / jnp.float32(_QMAX)
-            d_sorted = qd.astype(jnp.float32) * step
-            valid = (keys != _KEY_SENTINEL) & (qd < _QMAX) & qm_s[:n, None]
-        else:
-            s = d_t[:, :n].T  # [N, k]
-            i_sorted = i_t[:, :n].T
-            valid = (s < 1.0e15) & (i_sorted >= 0)
-            if precision is None or precision == "vpu":
-                # VPU-direct mode: s IS the true squared distance
-                d_sorted = s
-            else:
-                # MXU modes rank in shifted space; add |q|^2 back on the
-                # tiny [N, k] output
-                q2 = jnp.sum(q_s[:n] * q_s[:n], axis=1)
-                d_sorted = jnp.maximum(s + q2[:, None], 0.0)
-            valid = valid & (d_sorted <= r * r) & qm_s[:n, None]
-        if precision in ("bf16", "bf16x3"):
-            # bf16 ranking tiers (opt-in): re-rank the survivors in exact
-            # f32 — the candidate gather is what these tiers pay for their
-            # cheaper cross-term (see SWEEP_PRECISION.json)
-            cand = ref_s[jnp.clip(i_sorted, 0, m - 1)]  # [N, k, D]
-            diff = q_s[:n, None, :] - cand
-            d_exact = jnp.sum(diff * diff, axis=-1)
-            valid = valid & (d_exact <= r * r)
-            d_sorted = d_exact
-            if k > 1:
-                d_tmp = jnp.where(valid, d_sorted, jnp.inf)
-                order = jnp.argsort(d_tmp, axis=1)
-                d_sorted = jnp.take_along_axis(d_sorted, order, axis=1)
-                i_sorted = jnp.take_along_axis(i_sorted, order, axis=1)
-                valid = jnp.take_along_axis(valid, order, axis=1)
+        nblk = jnp.where(live, -(-jnp.minimum(span, W) // TR), 0)
+        need = m + -(-W // TR) * TR  # lo <= m, nblk * TR <= ceil(W/TR)*TR
+        if ref_planar.shape[1] < need:
+            ref_planar = jnp.pad(
+                ref_planar, ((0, 0), (0, need - ref_planar.shape[1])),
+                constant_values=BIG)
+        qp = planar(q_s, qm_s, n_pad)
+        d_t, i_t = sweep_knn_triton(
+            lo, nblk.astype(jnp.int32), (r * r).reshape(1), qp, ref_planar,
+            k=k, tq=q_tile, interpret=interpret)
+        d_sorted = d_t[:, :n].T  # [N, k]
+        i_sorted = i_t[:, :n].T
+        valid = (i_sorted >= 0) & (d_sorted <= r * r) & qm_s[:n, None]
         d_sorted = jnp.where(valid, d_sorted, jnp.inf)
         i_sorted = jnp.where(valid, i_sorted, -1)
     else:
-        # ---- portable XLA path: per-tile window slices under lax.map
+        from .nn import _knn_xla
         start = jnp.clip(lo, 0, jnp.maximum(m - W, 0))
+        n_tiles = n_pad // q_tile
         q_tiles = q_s.reshape(n_tiles, q_tile, dim)
         qm_tiles = qm_s.reshape(n_tiles, q_tile)
 
         def one_tile(args):
-            qt, qmt, s0 = args
+            qt, qmt, s0, lv = args
 
             def live_fn(_):
                 win = jax.lax.dynamic_slice(ref_s, (s0, 0), (W, dim))
                 wm = jax.lax.dynamic_slice(ref_mask_s, (s0,), (W,))
-                from .nn import _knn_xla
                 d, i = _knn_xla(qt, win, qmt, wm, k=k,
                                 max_radius=jnp.float32(max_radius))
                 return d, jnp.where(i >= 0, i + s0, -1)
@@ -470,9 +330,9 @@ def sweep_knn(
                 return (jnp.full((q_tile, k), jnp.inf, jnp.float32),
                         jnp.full((q_tile, k), -1, jnp.int32))
 
-            return jax.lax.cond(jnp.any(qmt), live_fn, dead, None)
+            return jax.lax.cond(lv, live_fn, dead, None)
 
-        d_t, i_t = jax.lax.map(one_tile, (q_tiles, qm_tiles, start))
+        d_t, i_t = jax.lax.map(one_tile, (q_tiles, qm_tiles, start, live))
         d_sorted = d_t.reshape(n_pad, k)[:n]
         i_sorted = i_t.reshape(n_pad, k)[:n]
 
@@ -482,6 +342,4 @@ def sweep_knn(
     if assume_sorted:
         return d_sorted, i_orig, overflow
     # un-sort the queries
-    d_out = d_sorted[inv]
-    i_out = i_orig[inv]
-    return d_out, i_out, overflow
+    return d_sorted[inv], i_orig[inv], overflow

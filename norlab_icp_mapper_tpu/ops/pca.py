@@ -1,23 +1,23 @@
-"""Radius-neighborhood PCA statistics: the MXU-native surface-normal engine.
+"""Radius-neighborhood PCA statistics: the surface-normal engine.
 
 The surface-normal pass (lpm ``SurfaceNormalDataPointsFilter``,
 ``examples/config.yaml:26-27``) is the single most expensive stage of the
 reference's merge pipeline when reimplemented as k-NN + per-point PCA: a
-top-k KNN kernel pays O(k) min-extraction passes over every candidate block
-on the VPU.  But the normal itself only needs the *covariance of the
-neighborhood*, not the identity of the k nearest points.  So instead of
-top-k we accumulate, per query point, the zeroth/first/second moments of all
-reference points within ``max_radius``:
+top-k search pays O(k) min-extraction passes over every candidate block.
+But the normal itself only needs the *covariance of the neighborhood*, not
+the identity of the k nearest points.  So instead of top-k we accumulate,
+per query point, the zeroth/first/second moments of all reference points
+within ``max_radius``:
 
     cnt_i   = sum_j  w_ij
     sx_i    = sum_j  w_ij * x_j
     sxx_i   = sum_j  w_ij * x_j x_j^T          w_ij = [ |x_j - q_i|^2 <= r^2 ]
 
-As a Pallas kernel this is three MXU matmuls per (query tile, ref tile)
-block: the pairwise-distance cross term and the moment accumulation
-``M @ W`` where ``M`` stacks the moment rows of the reference tile and ``W``
-is the 0/1 gate block.  Per-pair VPU work drops from ~4k ops (top-k rounds)
-to ~2 ops (distance assembly + gate) — the pass becomes MXU/bandwidth bound.
+Three implementations: the brute-force XLA oracle ``radius_pca_xla``
+(tiled over all N*M pairs), and the sorted sweep (``_radius_pca_sweep``)
+either as XLA window slices or as the Triton kernel ``pca_sweep_triton``,
+which walks each query tile's window like the matcher kernel and keeps the
+moment sums in registers.
 
 Numerical note: ``cov = sxx/cnt - mean mean^T`` cancels catastrophically
 when coordinates are far from the origin (error ~ eps * |x|^2).  Callers
@@ -33,17 +33,16 @@ local surface; the radius form is smoother and has no k-NN tie noise.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .nn_pallas import planarize, BIG
+from .nn_sweep import (BIG, NUM_STAGES, NUM_WARPS, TQ, TR, W_MAX, planar,
+                       sweep_window_walk, tile_windows)
 
-__all__ = ["radius_pca", "radius_pca_xla"]
+__all__ = ["radius_pca", "radius_pca_xla", "pca_sweep_triton"]
 
 
 def _n_moments(dim: int) -> int:
@@ -51,15 +50,16 @@ def _n_moments(dim: int) -> int:
     return 1 + dim + dim * (dim + 1) // 2
 
 
-def _moment_rows(x: jax.Array, dim: int) -> jax.Array:
-    """Stack moment rows for points given planar coords x [>=D, T]."""
+def _moment_rows(x, dim: int) -> list:
+    """Moment rows ``[1, x_a, x_a^2, x_a x_b (a<b)]`` of points given as
+    planar coordinate rows ``x[a]`` (each [T])."""
     rows = [jnp.ones_like(x[0])]
     rows += [x[a] for a in range(dim)]
     rows += [x[a] * x[a] for a in range(dim)]
     for a in range(dim):
         for b in range(a + 1, dim):
             rows.append(x[a] * x[b])
-    return jnp.stack(rows, axis=0)  # [n_moments, T]
+    return rows
 
 
 def _unpack_stats(acc: jax.Array, dim: int):
@@ -119,7 +119,7 @@ def radius_pca_xla(query, ref, query_mask=None, ref_mask=None,
                         precision=jax.lax.Precision.HIGHEST)  # [T, N]
         d2 = r2s[:, None] + q2[None, :] - 2.0 * cross
         w = ((d2 <= r2) & rm[:, None]).astype(jnp.float32)  # [T, N]
-        M = _moment_rows(r.T, dim)  # [nm, T]
+        M = jnp.stack(_moment_rows(r.T, dim))  # [nm, T]
         acc = acc + jnp.dot(M, w, precision=jax.lax.Precision.HIGHEST)
         return acc, None
 
@@ -130,81 +130,50 @@ def radius_pca_xla(query, ref, query_mask=None, ref_mask=None,
 
 
 # --------------------------------------------------------------------------
-# Pallas TPU kernel
+# the Triton kernel
 # --------------------------------------------------------------------------
 
-def _pca_fused_kernel(start_ref, live_ref, q_ref, r_ref, acc_ref, *,
-                      dim, r2, tq, tr, nm_pad):
-    """Single-launch sweep PCA: grid (query tiles, window blocks) with the
-    per-tile window start scalar-prefetched — same schedule as
-    ``nn_sweep._fused_kernel`` (one launch for the whole pass instead of a
-    per-tile ``lax.map`` of small kernels + ``dynamic_slice`` copies)."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
+def _pca_kernel(lo_ref, nblk_ref, r2_ref, q_ref, r_ref, acc_out, *, dim, tq,
+                tr):
+    """Sweep radius-PCA: the matcher kernel's window walk
+    (``nn_sweep.sweep_window_walk``) with a moment epilogue.  Per query, the
+    ``_n_moments(dim)`` sums accumulate in f32 registers as gated
+    multiply-adds over each block — no ``pl.dot``: a TF32 moment product
+    would wreck ``cov = sxx/cnt - mean^2``."""
+    nm = _n_moments(dim)
 
-    @pl.when(j == 0)
-    def _init():
-        acc_ref[:, :] = jnp.zeros((nm_pad, tq), jnp.float32)
+    def epilogue(acc, d2, r, off):
+        w = (d2 <= r2_ref[0]).astype(jnp.float32)  # [tq, tr]
+        rows = _moment_rows(r, dim)
+        return tuple(acc[a] + jnp.sum(w * rows[a][None, :], axis=1)
+                     for a in range(nm))
 
-    @pl.when(live_ref[i] != 0)
-    def _compute():
-        q = q_ref[:dim, :]  # [D, TQ]
-        r = r_ref[:dim, :]  # [D, TR]
-        # EXACT f32 distances on the VPU (subtract-first squares): for
-        # D=3 the MXU cross-term pads its contraction to the array's 128
-        # depth x 6 HIGHEST passes (roof 256 Gpair/s), while ~3 fused
-        # multiply-adds/pair on the VPU roof at ~430 Gpair/s — faster AND
-        # numerically ideal (no |q|^2/|r|^2 cancellation).
-        d2 = jnp.zeros((tr, tq), jnp.float32)
-        for d_ in range(dim):
-            dd = r[d_][:, None] - q[d_][None, :]
-            d2 = d2 + dd * dd
-        w = (d2 <= r2).astype(jnp.float32)  # [TR, TQ]
-        M = _moment_rows(r, dim)
-        nm = M.shape[0]
-        M = jnp.pad(M, ((0, nm_pad - nm), (0, 0)))
-        acc_ref[:, :] += jax.lax.dot_general(
-            M, w, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST)
+    init = tuple(jnp.zeros((tq,), jnp.float32) for _ in range(nm))
+    qs, acc = sweep_window_walk(lo_ref, nblk_ref, q_ref, r_ref, init,
+                                epilogue, tq=tq, tr=tr, dim=dim)
+    for a in range(nm):
+        acc_out[a, qs] = acc[a]
 
 
-@functools.partial(jax.jit, static_argnames=("r2", "dim", "tq", "tr",
-                                             "w_blocks"))
-def _pca_fused(start_blk, live, qp, rp, *, r2, dim, tq, tr, w_blocks):
-    n_pad = qp.shape[1]
-    nm_pad = 8 if dim == 2 else 16
-    grid = (n_pad // tq, w_blocks)
-    kern = functools.partial(_pca_fused_kernel, dim=dim, r2=r2, tq=tq,
-                             tr=tr, nm_pad=nm_pad)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((8, tq), lambda i, j, s_, lv: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, tr), lambda i, j, s_, lv: (0, s_[i] + j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((nm_pad, tq), lambda i, j, s_, lv: (0, i),
-                               memory_space=pltpu.VMEM),
-    )
-    acc = pl.pallas_call(
+@functools.partial(jax.jit, static_argnames=("tq", "interpret"))
+def pca_sweep_triton(lo, nblk, r2, qp, rp, *, tq: int = TQ,
+                     interpret: bool = False):
+    """The Triton sweep-PCA kernel on planar inputs (same window contract
+    as ``nn_sweep.sweep_knn_triton``).  Returns the moment sums
+    ``acc [n_moments, n]``."""
+    dim, n_pad = qp.shape
+    kern = functools.partial(_pca_kernel, dim=dim, tq=tq, tr=TR)
+    return pl.pallas_call(
         kern,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nm_pad, n_pad), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_pad * w_blocks * tr * (dim + nm_pad) * 6,
-            bytes_accessed=8 * (n_pad + (n_pad // tq) * w_blocks * tr) * 4
-            + nm_pad * n_pad * 4,
-            transcendentals=0,
-        ),
-    )(start_blk, live, qp, rp)
-    return acc
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+        grid=(n_pad // tq,),
+        out_shape=jax.ShapeDtypeStruct((_n_moments(dim), n_pad),
+                                       jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
+        interpret=interpret,
+        name="sweep_pca",
+    )(lo, nblk, r2, qp, rp)
 
 
 # --------------------------------------------------------------------------
@@ -213,23 +182,25 @@ def _round_up(x: int, m: int) -> int:
 
 @functools.partial(jax.jit,
                    static_argnames=("max_radius", "q_tile", "W", "use_pallas",
-                                    "self_neighborhood"))
+                                    "interpret", "self_neighborhood"))
 def _radius_pca_sweep(query, ref, query_mask, ref_mask, max_radius,
-                      q_tile: int = 2048, W: int = 4096,
-                      use_pallas: bool = True,
+                      q_tile=None, W: int = W_MAX,
+                      use_pallas: bool = False, interpret: bool = False,
                       self_neighborhood: bool = False):
     """Sorted-sweep radius PCA: sort both clouds by x, each query tile only
     sees the contiguous ref window within ``[tile_min - r, tile_max + r]``
-    (same schedule as ``nn_sweep.sweep_knn``).  Returns
+    (same schedule as ``nn_sweep.sweep_knn``; ``q_tile`` defaults to the
+    kernel's tile with ``use_pallas``, else 1024).  Returns
     ``(cnt, mean, cov, overflow_tiles)`` — ``overflow_tiles`` counts query
     tiles whose true candidate span exceeded ``W`` (their stats degrade to
     window-truncated; callers should log it, SURVEY "no silent caps")."""
     n, dim = query.shape
     m = ref.shape[0]
+    if q_tile is None:
+        q_tile = TQ if use_pallas else 1024
     W = min(W, m)
-    max_radius = float(max_radius)  # static: baked into the Pallas kernel
+    r2 = float(max_radius) ** 2
     r = jnp.float32(max_radius)
-    r2 = max_radius * max_radius
 
     ref_x = jnp.where(ref_mask, ref[:, 0], BIG)
     ref_order = jnp.argsort(ref_x)
@@ -239,58 +210,39 @@ def _radius_pca_sweep(query, ref, query_mask, ref_mask, max_radius,
 
     if self_neighborhood:
         # query IS ref (surface normals over one cloud): one argsort +
-        # one gather serve both sides — sorts dominate the merge pipeline
-        # at map scale, so this halves the pass's sort cost
-        q_x, q_order = ref_x, ref_order
+        # one gather serve both sides
+        q_order = ref_order
+        q_sorted, qm_sorted, qx_sorted = ref_s, ref_mask_s, ref_xs
     else:
         q_x = jnp.where(query_mask, query[:, 0], BIG)
         q_order = jnp.argsort(q_x)
-    n_pad = -(-n // q_tile) * q_tile
-    pad = n_pad - n
-    if self_neighborhood:  # reuse the sorted ref arrays (no second gather)
-        q_sorted, qm_sorted, qx_sorted = ref_s, ref_mask_s, ref_xs
-    else:
         q_sorted = query[q_order]
         qm_sorted = query_mask[q_order]
         qx_sorted = q_x[q_order]
+    n_pad = -(-n // q_tile) * q_tile
+    pad = n_pad - n
     q_s = jnp.pad(q_sorted, ((0, pad), (0, 0)), constant_values=BIG)
     qm_s = jnp.pad(qm_sorted, (0, pad))
     qx_s = jnp.pad(qx_sorted, (0, pad), constant_values=BIG)
 
-    n_tiles = n_pad // q_tile
-    qx_tiles = qx_s.reshape(n_tiles, q_tile)
-    qm_tiles = qm_s.reshape(n_tiles, q_tile)
-    tile_min = jnp.min(jnp.where(qm_tiles, qx_tiles, BIG), axis=1)
-    tile_max = jnp.max(jnp.where(qm_tiles, qx_tiles, -BIG), axis=1)
-    lo = jnp.searchsorted(ref_xs, tile_min - r).astype(jnp.int32)
-    hi = jnp.searchsorted(ref_xs, tile_max + r).astype(jnp.int32)
-    live = jnp.any(qm_tiles, axis=1)
-    overflow = jnp.sum((live & ((hi - lo) > W)).astype(jnp.int32))
-
+    lo, span, live, overflow = tile_windows(qx_s, qm_s, ref_xs, r, q_tile, W)
     nm = _n_moments(dim)
-    nm_pad = 8 if dim == 2 else 16
 
     if use_pallas:
-        # single-launch sweep: scalar-prefetched window starts, no
-        # per-tile dispatch / dynamic_slice window copies
-        tr = 512
-        m_pad = _round_up(max(m, tr), tr)
-        w_blocks = -(-W // tr) + 1
-        m_pad = max(m_pad, w_blocks * tr)
-        rp = planarize(ref_s, ref_mask_s, m_pad)
-        qp = planarize(q_s, qm_s, n_pad)
-        start_blk = jnp.clip(lo // tr, 0, m_pad // tr - w_blocks)
-        # kernel query tile == the sweep tile so start_blk/live index 1:1
-        acc_pad = _pca_fused(start_blk, live.astype(jnp.int32), qp, rp,
-                             r2=r2, dim=dim, tq=q_tile, tr=tr,
-                             w_blocks=w_blocks)
-        acc_sorted = acc_pad[:nm, :n]
+        nblk = jnp.where(live, -(-jnp.minimum(span, W) // TR), 0)
+        rp = planar(ref_s, ref_mask_s, m + -(-W // TR) * TR)
+        qp = planar(q_s, qm_s, n_pad)
+        acc_sorted = pca_sweep_triton(
+            lo, nblk.astype(jnp.int32), jnp.full((1,), r2, jnp.float32),
+            qp, rp, tq=q_tile, interpret=interpret)[:, :n]
     else:
         start = jnp.clip(lo, 0, jnp.maximum(m - W, 0))
+        n_tiles = n_pad // q_tile
         q_tiles = q_s.reshape(n_tiles, q_tile, dim)
+        qm_tiles = qm_s.reshape(n_tiles, q_tile)
 
         def one_tile(args):
-            qt, qmt, s0 = args
+            qt, qmt, s0, lv = args
 
             def live_fn(_):
                 win = jax.lax.dynamic_slice(ref_s, (s0, 0), (W, dim))
@@ -302,18 +254,16 @@ def _radius_pca_sweep(query, ref, query_mask, ref_mask, max_radius,
                 d2 = r2s[:, None] + q2[None, :] - 2.0 * cross
                 w = ((d2 <= r2) & wm[:, None]
                      & qmt[None, :]).astype(jnp.float32)
-                M = _moment_rows(win.T, dim)
-                acc = jnp.dot(M, w, precision=jax.lax.Precision.HIGHEST)
-                return jnp.pad(acc, ((0, nm_pad - nm), (0, 0)))
+                M = jnp.stack(_moment_rows(win.T, dim))
+                return jnp.dot(M, w, precision=jax.lax.Precision.HIGHEST)
 
             def dead_fn(_):
-                return jnp.zeros((nm_pad, q_tile), jnp.float32)
+                return jnp.zeros((nm, q_tile), jnp.float32)
 
-            return jax.lax.cond(jnp.any(qmt), live_fn, dead_fn, None)
+            return jax.lax.cond(lv, live_fn, dead_fn, None)
 
-        acc_t = jax.lax.map(one_tile, (q_tiles, qm_tiles, start))
-        acc_sorted = jnp.moveaxis(acc_t, 1, 0).reshape(nm_pad,
-                                                       n_pad)[:nm, :n]
+        acc_t = jax.lax.map(one_tile, (q_tiles, qm_tiles, start, live))
+        acc_sorted = jnp.moveaxis(acc_t, 1, 0).reshape(nm, n_pad)[:, :n]
     # un-sort queries
     inv = jnp.zeros((n,), jnp.int32).at[q_order].set(
         jnp.arange(n, dtype=jnp.int32))
@@ -324,19 +274,24 @@ def _radius_pca_sweep(query, ref, query_mask, ref_mask, max_radius,
 
 
 def radius_pca(query, ref, query_mask=None, ref_mask=None, max_radius=1.0,
-               q_tile: int = 2048, W: int = 4096):
-    """Per-backend radius-neighborhood PCA.
+               engine=None):
+    """Radius-neighborhood PCA on the backend's engine
+    (``ops.engine.select_engine``): the sorted sweep, or the brute-force
+    XLA tiles.
 
     Returns ``(cnt f32[N], mean f32[N, D], cov f32[N, D, D], overflow i32)``.
     Both clouds are centered on the query cloud's masked mean internally
     (see module docstring on cancellation); outputs are frame-local, i.e.
     ``mean`` is returned in the *original* frame.
     """
+    from .engine import select_engine
+    engine = engine or select_engine()
     n, dim = query.shape
+    self_nn = query is ref and query_mask is ref_mask
     if query_mask is None:
         query_mask = jnp.ones((n,), bool)
     if ref_mask is None:
-        ref_mask = jnp.ones((ref.shape[0],), bool)
+        ref_mask = query_mask if self_nn else jnp.ones((ref.shape[0],), bool)
 
     # center on the query cloud's masked mean (cancellation mitigation)
     qsum = jnp.sum(jnp.where(query_mask[:, None], query, 0.0), axis=0)
@@ -345,12 +300,11 @@ def radius_pca(query, ref, query_mask=None, ref_mask=None, max_radius=1.0,
     qc = query - c
     rc = ref - c
 
-    from .nn import _use_pallas
-    if _use_pallas():
-        self_nn = query is ref and (query_mask is ref_mask)
+    if engine.sweep:
         cnt, mean, cov, overflow = _radius_pca_sweep(
-            qc, rc, query_mask, ref_mask, max_radius, q_tile=q_tile, W=W,
-            use_pallas=True, self_neighborhood=self_nn)
+            qc, rc, query_mask, ref_mask, float(max_radius),
+            use_pallas=True, interpret=engine.interpret,
+            self_neighborhood=self_nn)
     else:
         cnt, mean, cov = radius_pca_xla(qc, rc, query_mask, ref_mask,
                                         max_radius)

@@ -1,6 +1,6 @@
 """Voxel-grid bucketing utilities (sort-based, static-shape).
 
-TPU-native replacement for libpointmatcher's octree build used by the
+Device replacement for libpointmatcher's octree build used by the
 reference's ``OctreeMapperModule`` (``OctreeMapperModule.cpp:35-39``) and
 ``OctreeGridDataPointsFilter``: a pointer-chasing octree subdivides until
 leaves are smaller than ``maxSizeByNode`` — functionally a (near-)uniform

@@ -42,9 +42,8 @@ def initialize(coordinator_address: Optional[str] = None,
     Must be called BEFORE the first device use (backend init).  Arguments
     default to the standard env vars (``JAX_COORDINATOR_ADDRESS``,
     ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) so one entry point works
-    under mpirun/srun/k8s launchers; on TPU pods with the default runtime
-    all three are auto-detected and this reduces to
-    ``jax.distributed.initialize()``.  No-op for single-process runs
+    under mpirun/srun/k8s launchers (on GPU machines nothing is
+    auto-detected: pass them or set the env vars).  No-op for single-process runs
     (num_processes == 1 and no coordinator configured).
     """
     coordinator_address = coordinator_address or os.environ.get(

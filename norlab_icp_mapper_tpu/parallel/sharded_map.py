@@ -27,7 +27,7 @@ the single-chip ``Mapper``:
     recorded through the same ``Trajectory`` class as the single-chip path
     (device poses appended lazily — no per-scan sync).
 
-Replaces (TPU-natively) the reference's zero-copy map handoff
+Replaces, device-resident, the reference's zero-copy map handoff
 ``Map.cpp:527-529``, its single-threaded merge ``Map.cpp:502-534``, and its
 cell load/unload state machine ``Map.cpp:246-460``.
 
@@ -65,6 +65,7 @@ which the reference pays synchronous cell IO (``Map.cpp:490-493``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import jax
@@ -555,8 +556,8 @@ class ShardedMapperStep:
 
     # ------------------------------------------------------- shared parts
     def _tiled_nn1(self, q, ref, ref_mask):
-        """1-NN of q [N,E] in a masked ref [M,E] (tiled brute force on the
-        MXU: ||q-r||^2 = q2 + r2 - 2 q.r)."""
+        """1-NN of q [N,E] in a masked ref [M,E] (tiled brute force, XLA
+        engine: ||q-r||^2 = q2 + r2 - 2 q.r at HIGHEST precision)."""
         cfg = self.cfg
         m, e = ref.shape
         n_t = _n_ref_tiles(m, cfg.ref_tile)
@@ -626,17 +627,20 @@ class ShardedMapperStep:
         r_norm = cfg.normal_radius
         eig_smallest = sym_eig3_smallest if dim == 3 else sym_eig2_smallest
         local_nn = self._tiled_nn1
-        # the fast matcher (VERDICT r4 missing #2): on TPU the solve and
-        # the insert gate run the same sorted-sweep windowed kernel as the
-        # single-chip fused path (ops/nn_sweep.py) over the shard block —
-        # the reference gives every path the same fast matcher
-        # (Map.cpp:527-529).  Presorts are hoisted: once per solve for the
-        # map (static across GN iterations), once per merge for the gate.
-        from ..ops.nn import _use_pallas as _nn_use_pallas
+        # the fast matcher: on the Triton engine (ops/engine.py) the solve,
+        # the insert gate and the DynamicPoints angular NN run the same
+        # sorted-sweep kernel as the single-chip fused path
+        # (ops/nn_sweep.py) over the shard block — the reference gives
+        # every path the same fast matcher (Map.cpp:527-529).  Presorts are
+        # hoisted: once per solve for the map (static across GN
+        # iterations), once per merge for the gate.  The XLA engine runs
+        # tiled brute force over the shard block.
+        from ..ops.engine import select_engine
         from ..ops.nn_sweep import presort_ref, sweep_knn
-        from ..icp.engine import _sweep_precision
-        on_tpu = _nn_use_pallas()
-        use_sweep = np.isfinite(cfg.match_max_dist) and on_tpu
+        engine = select_engine()
+        sweep = functools.partial(sweep_knn, use_pallas=True,
+                                  interpret=engine.interpret)
+        use_sweep = np.isfinite(cfg.match_max_dist) and engine.sweep
 
         def sweep_matchers(read_pos, read_mask, map_pos, map_msk):
             """Per-solve matcher closure + the (possibly re-ordered)
@@ -644,7 +648,7 @@ class ShardedMapperStep:
             ``(match_fn, read_pos, read_mask)`` where ``match_fn(p, cur)
             -> (d2 [N], idx [N])``, d2 = inf beyond the matcher radius.
 
-            On TPU the reading is sorted by x ONCE here and the whole
+            On the sweep the reading is sorted by x ONCE here and the whole
             solve runs in sweep order (every shard sorts the identical
             replicated reading deterministically, so per-query psum/pmin
             alignment across shards is preserved; all downstream
@@ -661,11 +665,10 @@ class ShardedMapperStep:
             read_mask = read_mask[order]
 
             def match_sweep(p, cur):
-                d2, idx, ov = sweep_knn(
+                d2, idx, ov = sweep(
                     p, map_pos, cur, map_msk, k=1,
-                    max_radius=cfg.match_max_dist, q_tile=1024, W=8192,
-                    presorted=pre, assume_sorted=True,
-                    precision=_sweep_precision())
+                    max_radius=cfg.match_max_dist,
+                    presorted=pre, assume_sorted=True)
                 record_overflow("sharded_matcher_sweep", ov)
                 return d2[:, 0], idx[:, 0]
             return match_sweep, read_pos, read_mask
@@ -912,14 +915,12 @@ class ShardedMapperStep:
             scan_ang = _spherical_angles(scan_s, scan_r)
             map_ang = _spherical_angles(map_s, map_r)
             radius = 2.0 * dp["beamHalfAngle"]
-            if on_tpu:
-                # azimuth-sorted sweep, same engine/W as the single-chip
-                # module (mapper_modules/core.py:246-256): beams spread
-                # uniformly in azimuth, so a 1024-query tile spans ~0.1 rad
-                d2s, idxs, ova = sweep_knn(
+            if engine.sweep:
+                # azimuth-sorted sweep, as the single-chip module
+                # (mapper_modules/core.py)
+                d2s, idxs, ova = sweep(
                     map_ang, scan_ang, in_range, scan_mask, k=1,
-                    max_radius=radius, q_tile=1024, W=1024,
-                    precision=_sweep_precision())
+                    max_radius=radius)
                 record_overflow("sharded_dp_angular_sweep", ova)
                 d2a, idxa = d2s[:, 0], idxs[:, 0]
                 no_match = ~jnp.isfinite(d2a)
@@ -962,16 +963,15 @@ class ShardedMapperStep:
             # unconditionally then (voxel decimation dedups), and the
             # dense scan-vs-map NN is the merge's most expensive pass.
             if cfg.min_dist_new_point > 0:
-                if on_tpu:
+                if engine.sweep:
                     # the gate only needs "is there a map point within
                     # minDistNewPoint", so the sweep radius is the gate
                     # threshold itself — tight windows, counted overflow
                     gate_pre = presort_ref(pos, msk)
-                    d2s, _, ovg = sweep_knn(
+                    d2s, _, ovg = sweep(
                         scan_c, pos, scan_mask, msk, k=1,
                         max_radius=cfg.min_dist_new_point,
-                        q_tile=1024, W=8192, presorted=gate_pre,
-                        precision=_sweep_precision())
+                        presorted=gate_pre)
                     record_overflow("sharded_insert_gate_sweep", ovg)
                     d2 = d2s[:, 0]
                 else:
@@ -1022,13 +1022,13 @@ class ShardedMapperStep:
                 [pos, all_pos.reshape(-1, pos.shape[1])])
             ref_msk = jnp.concatenate([msk, all_val.reshape(-1)])
 
-            # surface normals: radius PCA over local + ghosts (the Pallas
-            # sorted-sweep PCA on TPU — same engine as the single-chip
-            # merge — XLA tiles elsewhere)
-            if on_tpu:
+            # surface normals: radius PCA over local + ghosts (the
+            # backend's engine, as in the single-chip merge)
+            if engine.sweep:
                 from ..ops.pca import radius_pca
                 cnt, _, cov, pca_of = radius_pca(pos, ref_pos, msk,
-                                                 ref_msk, r_norm)
+                                                 ref_msk, r_norm,
+                                                 engine=engine)
                 record_overflow("sharded_pca_sweep", pca_of)
             else:
                 from ..ops.pca import radius_pca_xla

@@ -1,4 +1,4 @@
-"""PointBatch: the TPU-native replacement for libpointmatcher's ``DataPoints``.
+"""PointBatch: the device-resident replacement for libpointmatcher's ``DataPoints``.
 
 The reference stores point clouds as a dynamically-sized Eigen matrix of
 homogeneous features plus named descriptor rows (see reference
@@ -38,7 +38,7 @@ def bucket_capacity(n: int) -> int:
     min 256: 256, 320, 384, 448, 512, 640, ...).
 
     Bucketing keeps the number of distinct compiled shapes logarithmic in the
-    largest cloud seen, the TPU-native answer to the reference's free
+    largest cloud seen, the static-shape answer to the reference's free
     ``conservativeResize`` (``Map.cpp:169``).  Quarter steps cap padding
     waste at 25% (pure powers of two waste up to 2x, which directly inflates
     every capacity-proportional pass: sorts, scatters, elementwise filters).

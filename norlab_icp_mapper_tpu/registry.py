@@ -1,6 +1,6 @@
 """Name -> factory registries with parameter schemas.
 
-TPU-native equivalent of libpointmatcher's ``Parametrizable`` + registrar
+Equivalent of libpointmatcher's ``Parametrizable`` + registrar
 machinery used throughout the reference (``MapperModule.h:12``,
 ``Mapper.h:69-70``, ``Mapper.cpp:9-13,169``): each plugin declares a
 parameter schema (doc, default, type, optional min/max); the factory

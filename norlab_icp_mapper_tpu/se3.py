@@ -1,6 +1,6 @@
 """SE(3)/SE(2) rigid-transform utilities (JAX, float32).
 
-TPU-native replacement for the reference's ``RigidTransformation`` usage
+JAX replacement for the reference's ``RigidTransformation`` usage
 (``Mapper.cpp:22,197,221``, ``Map.cpp:14,523-525``): apply a homogeneous
 (D+1)x(D+1) transform to point positions and rotate covariant descriptors
 (normals), plus the exp/log maps needed by the Gauss-Newton minimizer that

@@ -212,7 +212,7 @@ def _register_pairs_impl(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
     """Batched point-to-plane registration of candidate pairs.
 
     All arrays lead with the candidate axis C; the whole batch is ONE
-    vmapped GN program — the TPU-idiomatic replacement for the serial
+    vmapped GN program — the data-parallel replacement for the serial
     one-solve-per-pair host loop (VERDICT r1).  Loop-closure pairs overlap
     only partially, so the solve trims to the best ``trim_ratio`` fraction
     of matched pairs per iteration (lpm TrimmedDistOutlierFilter

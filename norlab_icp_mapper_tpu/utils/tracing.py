@@ -7,7 +7,7 @@ config).  Here observability is first-class:
   - ``StageTimer``: lightweight wall-clock stage timers with device sync,
     aggregated into percentiles (the "ICP iteration ms p50" bench metric).
   - ``trace(name)``: context manager combining the timer with a
-    ``jax.profiler.TraceAnnotation`` so stages show up in TPU profiles.
+    ``jax.profiler.TraceAnnotation`` so stages show up in device profiles.
   - ``start_profiler(logdir)`` / ``stop_profiler``: wraps
     ``jax.profiler.start_trace`` for on-demand device profiles.
   - ``IterationInspector``: the VTKFileInspector equivalent — records

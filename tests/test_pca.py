@@ -78,17 +78,19 @@ def test_sweep_overflow_counter(rng):
     assert int(overflow) > 0
 
 
-def test_pallas_kernel_matches_oracle_interpret(rng):
-    from jax.experimental.pallas import tpu as pltpu
-    q = rng.normal(size=(300, 3)).astype(np.float32) * 4
-    r = rng.normal(size=(700, 3)).astype(np.float32) * 4
+@pytest.mark.parametrize("dim", [2, 3])
+def test_triton_kernel_matches_oracle_interpret(rng, dim):
+    q = rng.normal(size=(300, dim)).astype(np.float32) * 4
+    r = rng.normal(size=(700, dim)).astype(np.float32) * 4
+    qm = rng.random(300) > 0.1
+    rm = rng.random(700) > 0.1
     cnt_x, mean_x, cov_x = radius_pca_xla(
-        jnp.asarray(q), jnp.asarray(r), max_radius=1.5)
-    with pltpu.force_tpu_interpret_mode():
-        cnt_p, mean_p, cov_p, _ = _radius_pca_sweep(
-            jnp.asarray(q), jnp.asarray(r), jnp.ones(300, bool),
-            jnp.ones(700, bool), max_radius=1.5, q_tile=256, W=700,
-            use_pallas=True)
+        jnp.asarray(q), jnp.asarray(r), jnp.asarray(qm), jnp.asarray(rm),
+        max_radius=1.5)
+    cnt_p, mean_p, cov_p, overflow = _radius_pca_sweep(
+        jnp.asarray(q), jnp.asarray(r), jnp.asarray(qm), jnp.asarray(rm),
+        max_radius=1.5, W=700, use_pallas=True, interpret=True)
+    assert int(overflow) == 0
     np.testing.assert_allclose(np.asarray(cnt_p), np.asarray(cnt_x),
                                atol=1e-3)
     np.testing.assert_allclose(np.asarray(mean_p), np.asarray(mean_x),
